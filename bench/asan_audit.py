@@ -36,7 +36,7 @@ import sys
 import tempfile
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
-SRC = REPO / "multithreading_string_matching_tpu" / "native" / "pcap_ingest.cpp"
+SRC = REPO / "multithreading_string_matching" / "native" / "pcap_ingest.cpp"
 ASAN_SO = pathlib.Path(tempfile.gettempdir()) / f"libmsm_ingest_asan.{os.getuid()}.so"
 
 
@@ -78,7 +78,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO / "tests"))
     import numpy as np
 
-    from multithreading_string_matching_tpu.io import native
+    from multithreading_string_matching.io import native
 
     lib = ctypes.CDLL(str(ASAN_SO))
     native._bind(lib)
@@ -97,7 +97,7 @@ def main() -> int:
     print("timestamp extremes clean under ASan", flush=True)
 
     rng = np.random.default_rng(args.seed)
-    from multithreading_string_matching_tpu.io.pcap import iter_pcap, read_pcap
+    from multithreading_string_matching.io.pcap import iter_pcap, read_pcap
 
     def valid_classic(end="<"):
         out = bytearray(

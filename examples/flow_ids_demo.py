@@ -26,14 +26,14 @@ if os.environ.get("MSM_PLATFORM") == "cpu":
 
 import numpy as np
 
-from multithreading_string_matching_tpu import Matcher, extract_payloads
-from multithreading_string_matching_tpu.io.flows import extract_flows
-from multithreading_string_matching_tpu.io.pcap import read_pcap
-from multithreading_string_matching_tpu.io.patterns import load_patterns
+from multithreading_string_matching import Matcher, extract_payloads
+from multithreading_string_matching.io.flows import extract_flows
+from multithreading_string_matching.io.pcap import read_pcap
+from multithreading_string_matching.io.patterns import load_patterns
 
 
 def _demo_capture():
-    from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
+    from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
 
     d = pathlib.Path(tempfile.mkdtemp())
     cap, sigs = d / "demo.pcap", d / "sigs.txt"
@@ -79,9 +79,9 @@ def main(argv):
     # The same alerts from the UNBOUNDED streaming monitor (the daemon
     # shape — `match --flows --stream --offsets`): per-flow carried tails,
     # bounded pending, positions identical to the one-shot reassembly.
-    from multithreading_string_matching_tpu.io.flows import key_tuple_bytes
-    from multithreading_string_matching_tpu.io.pcap import slice_pcap
-    from multithreading_string_matching_tpu.parallel.flow_stream import (
+    from multithreading_string_matching.io.flows import key_tuple_bytes
+    from multithreading_string_matching.io.pcap import slice_pcap
+    from multithreading_string_matching.parallel.flow_stream import (
         FlowStreamMatcher,
     )
 

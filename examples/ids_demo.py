@@ -25,7 +25,7 @@ if os.environ.get("MSM_PLATFORM") == "cpu":
 
 import numpy as np
 
-from multithreading_string_matching_tpu import (
+from multithreading_string_matching import (
     Matcher,
     extract_payloads,
     load_patterns,
@@ -58,7 +58,7 @@ def scan_file(path, patterns_path, mode):
           f"({batch.total_payload_bytes} payload bytes)")
     if os.environ.get("MSM_DUMP"):
         # Retain the offending packets for forensics (original records).
-        from multithreading_string_matching_tpu import write_pcap
+        from multithreading_string_matching import write_pcap
 
         hit_rows = np.unique(rows[:, 0]) if len(rows) else []
         wrote = write_pcap(os.environ["MSM_DUMP"], pcap, valid_idx[hit_rows])
@@ -67,9 +67,9 @@ def scan_file(path, patterns_path, mode):
 
 
 def scan_live(iface, patterns_path, mode):
-    from multithreading_string_matching_tpu.io.live import LiveSource
-    from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
-    from multithreading_string_matching_tpu.utils.report import format_report
+    from multithreading_string_matching.io.live import LiveSource
+    from multithreading_string_matching.parallel.stream import StreamMatcher
+    from multithreading_string_matching.utils.report import format_report
 
     matcher = Matcher(load_patterns(patterns_path), engine="auto")
     # Defaults give the serving shape for free: packed tiles (one device

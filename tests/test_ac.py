@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 
 from oracle import count_overlapping
-from multithreading_string_matching_tpu.models.aho_corasick import AhoCorasick
+from multithreading_string_matching.models.aho_corasick import AhoCorasick
 
 
 def run_ac(ac: AhoCorasick, text: bytes) -> np.ndarray:

@@ -16,9 +16,9 @@ import lzma
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu.io import open_capture, read_pcap, iter_pcap, concat_pcaps
-from multithreading_string_matching_tpu.api import Matcher, load_patterns
-from multithreading_string_matching_tpu.parallel.pipeline import count_pcap_streamed
+from multithreading_string_matching.io import open_capture, read_pcap, iter_pcap, concat_pcaps
+from multithreading_string_matching.api import Matcher, load_patterns
+from multithreading_string_matching.parallel.pipeline import count_pcap_streamed
 
 CODECS = {
     "gzip": gzip.compress,
@@ -112,7 +112,7 @@ def test_cli_match_stdin(reference_dir, tmp_path, monkeypatch, capsys):
     # match --pcap - reads the capture from stdin.
     import io as _io
 
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     raw = (reference_dir / "udp.pcap").read_bytes()
     monkeypatch.setattr(
@@ -264,7 +264,7 @@ def test_truncated_compressed_tolerant_keeps_prefix(codec, reference_dir, tmp_pa
 
 @pytest.mark.parametrize("suffix", ["gz", "bz2", "xz"])
 def test_write_pcap_compressed_roundtrip(suffix, reference_dir, tmp_path):
-    from multithreading_string_matching_tpu.io.pcap import write_pcap, PcapWriter
+    from multithreading_string_matching.io.pcap import write_pcap, PcapWriter
 
     full = read_pcap(reference_dir / "udp.pcap")
     out = tmp_path / f"out.pcap.{suffix}"

@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu.utils.config import MatchConfig
-from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
-from multithreading_string_matching_tpu.io.pcap import read_pcap
-from multithreading_string_matching_tpu.io.decode import extract_payloads
+from multithreading_string_matching.utils.config import MatchConfig
+from multithreading_string_matching.io.synth import synth_udp_pcap
+from multithreading_string_matching.io.pcap import read_pcap
+from multithreading_string_matching.io.decode import extract_payloads
 
 
 def test_config_roundtrip(tmp_path):
@@ -36,7 +36,7 @@ def test_config_host_workers(tmp_path, reference_dir, capsys):
     with pytest.raises(ValueError, match="host_workers"):
         MatchConfig(host_workers=-1).validate()
 
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     path = tmp_path / "c.json"
     path.write_text(MatchConfig(
@@ -59,7 +59,7 @@ def test_config_env_override(monkeypatch):
 
 
 def test_synth_corpus_counts(tmp_path, strings_path):
-    from multithreading_string_matching_tpu import Matcher, load_patterns
+    from multithreading_string_matching import Matcher, load_patterns
     import oracle
 
     pats = load_patterns(strings_path)
@@ -81,9 +81,9 @@ def test_synth_corpus_counts(tmp_path, strings_path):
 
 
 def test_stream_checkpoint_resume(tmp_path, strings_path, reference_dir):
-    from multithreading_string_matching_tpu import Matcher, load_patterns
-    from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
-    from multithreading_string_matching_tpu.io.live import FileReplaySource
+    from multithreading_string_matching import Matcher, load_patterns
+    from multithreading_string_matching.parallel.stream import StreamMatcher
+    from multithreading_string_matching.io.live import FileReplaySource
 
     m = Matcher(load_patterns(strings_path))
     full = StreamMatcher(m)

@@ -2,8 +2,8 @@ import numpy as np
 import pytest
 
 import oracle
-from multithreading_string_matching_tpu.io.pcap import read_pcap
-from multithreading_string_matching_tpu.io.decode import extract_payloads, decode_headers
+from multithreading_string_matching.io.pcap import read_pcap
+from multithreading_string_matching.io.decode import extract_payloads, decode_headers
 
 # BASELINE.md corpus facts: (fixture, mode, valid_count, payload_bytes)
 CORPUS = [

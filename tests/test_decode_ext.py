@@ -13,13 +13,13 @@ import sys
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import (
+from multithreading_string_matching import (
     Matcher,
     extract_payloads,
     load_patterns,
     read_pcap,
 )
-from multithreading_string_matching_tpu.io.decode import decode_headers
+from multithreading_string_matching.io.decode import decode_headers
 
 
 def _write_pcap(path, frames):
@@ -171,7 +171,7 @@ def test_cli_vlan_ipv6_flags(tmp_path, reference_dir):
     ]
     path = _write_pcap(tmp_path / "cli.pcap", frames)
     out = subprocess.run(
-        [sys.executable, "-m", "multithreading_string_matching_tpu", "match",
+        [sys.executable, "-m", "multithreading_string_matching", "match",
          "--pcap", str(path), "--patterns", str(reference_dir / "strings.txt"),
          "--vlan", "--ipv6", "--engine", "window", "--json"],
         capture_output=True, text=True, check=True,
@@ -189,7 +189,7 @@ def test_cli_engine_auto_accepted(reference_dir):
     import json as json_
 
     out = subprocess.run(
-        [sys.executable, "-m", "multithreading_string_matching_tpu", "match",
+        [sys.executable, "-m", "multithreading_string_matching", "match",
          "--pcap", str(reference_dir / "udp.pcap"),
          "--patterns", str(reference_dir / "strings.txt"),
          "--engine", "auto", "--json"],
@@ -428,12 +428,12 @@ def test_bpf_mask_ipv6_fragment_matches_kernel_program(tmp_path):
     and replay 'sniffed' totals diverge on fragmented v6 traffic."""
     import struct
 
-    from multithreading_string_matching_tpu.io.decode import bpf_protocol_mask
-    from multithreading_string_matching_tpu.io.live import (
+    from multithreading_string_matching.io.decode import bpf_protocol_mask
+    from multithreading_string_matching.io.live import (
         bpf_protocol_program,
         bpf_simulate,
     )
-    from multithreading_string_matching_tpu.io.pcap import read_pcap
+    from multithreading_string_matching.io.pcap import read_pcap
 
     def v6_frame(next_hdr, frag_next=None):
         payload = b"\x00" * 16

@@ -10,15 +10,15 @@ import sys
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher, load_patterns, read_pcap
-from multithreading_string_matching_tpu.io.decode import extract_payloads
+from multithreading_string_matching import Matcher, load_patterns, read_pcap
+from multithreading_string_matching.io.decode import extract_payloads
 
 CLI_ENV = {"MSM_PLATFORM": "cpu", "PATH": "/usr/bin:/bin", "HOME": "/root"}
 
 
 def _run_match(*args, check=True):
     return subprocess.run(
-        [sys.executable, "-m", "multithreading_string_matching_tpu", "match", *args],
+        [sys.executable, "-m", "multithreading_string_matching", "match", *args],
         capture_output=True, text=True, check=check, env=CLI_ENV,
     )
 
@@ -26,7 +26,7 @@ def _run_match(*args, check=True):
 def test_config_file_values_respected(tmp_path, reference_dir):
     """Regression: unset flags used to clobber --config values with argparse
     defaults (mode back to udp, engine back to pallas, strict off)."""
-    from multithreading_string_matching_tpu.utils.config import MatchConfig
+    from multithreading_string_matching.utils.config import MatchConfig
 
     cfg = MatchConfig(mode="tcp", engine="ac", strict=True)
     path = tmp_path / "cfg.json"
@@ -75,7 +75,7 @@ def test_sharded_per_packet_matrix(reference_dir):
 
 
 def test_format_report_rejects_matrix():
-    from multithreading_string_matching_tpu.utils.report import format_report
+    from multithreading_string_matching.utils.report import format_report
 
     with pytest.raises(ValueError, match="per-pattern"):
         format_report([b"a", b"b"], np.ones((3, 2), np.int32), 0.1)
@@ -112,10 +112,10 @@ def test_zero_caplen_capture_decodes_as_invalid(tmp_path):
             assert int(batch.valid.sum()) == 0
 
 
-def test_unknown_engine_raises(reference_dir):
+def test_unknown_engine_raises():
     """A typo'd per-call engine override raises instead of silently running
     the window engine (the constructor already validated eagerly)."""
-    from multithreading_string_matching_tpu import Matcher
+    from multithreading_string_matching import Matcher
 
     m = Matcher([b"http"])
     p = np.zeros((2, 16), np.uint8)
@@ -124,24 +124,22 @@ def test_unknown_engine_raises(reference_dir):
         m.count(p, l, engine="acc")  # typo of 'ac'
 
 
-def test_pallas_interpret_env_zero_means_off(monkeypatch):
-    """MSM_PALLAS_INTERPRET=0 must NOT force interpret mode (raw truthiness
-    would); parsing matches MSM_PALLAS_TABLE."""
-    from multithreading_string_matching_tpu import Matcher
+def test_pallas_interpret_env_zero_means_off():
+    """'pallas' never runs a kernel in interpret mode: it resolves to the
+    window engine (explicitly requested or as the default)."""
+    from multithreading_string_matching import Matcher
 
-    m = Matcher([b"http"])
-    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "0")
-    assert m._resolve_engine("pallas") == "window"  # CPU host degrades
-    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
-    assert m._resolve_engine("pallas") == "pallas"
+    assert Matcher([b"http"])._resolve_engine("pallas") == "window"
+    assert Matcher([b"http"])._resolve_engine(None) == "window"
+    assert Matcher([b"http"], engine="ac")._resolve_engine("pallas") == "window"
 
 
-def test_count_folds_once_on_pallas_path(reference_dir, monkeypatch):
-    """count() delegates folding to prepare() on the pallas path — a second
-    full-corpus fold pass on the hot path was measured and removed."""
-    from multithreading_string_matching_tpu import Matcher
+def test_count_folds_once_on_pallas_path(monkeypatch):
+    """count() folds the payloads once on the default ('pallas' ->
+    window) path — a second full-corpus fold pass would double the host
+    work."""
+    from multithreading_string_matching import Matcher
 
-    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
     m = Matcher([b"http"], case_insensitive=True)
     calls = []
     orig = Matcher._maybe_fold
@@ -159,38 +157,18 @@ def test_count_folds_once_on_pallas_path(reference_dir, monkeypatch):
     assert sum(calls) == 1, f"{sum(calls)} fold passes on one count()"
 
 
-def test_count_per_packet_explicit_packed_raises(reference_dir):
-    """per_packet=True with an EXPLICIT staging='packed' raises (identity
-    is destroyed by packing) — same contract as count_prepared; 'auto'
-    quietly routes to bucketed."""
-    from multithreading_string_matching_tpu import Matcher
+def test_pallas_zero_width_tile_counts_zero():
+    """A zero-WIDTH payload tensor returns zero counts on every path
+    (one-shot, per-packet, staged tiles)."""
+    from multithreading_string_matching import Matcher
 
-    m = Matcher([b"http"])
-    p = np.zeros((2, 16), np.uint8)
-    l = np.full(2, 16, np.int32)
-    with pytest.raises(ValueError, match="per-packet"):
-        m.count(p, l, per_packet=True, staging="packed")
-    out = m.count(p, l, per_packet=True, staging="auto")
-    assert out.shape == (2, 1)
-
-
-def test_pallas_zero_width_tile_counts_zero(reference_dir, monkeypatch):
-    """A zero-WIDTH payload tensor through the Pallas tile surface returns
-    zero counts instead of dividing the VMEM budget by zero."""
-    from multithreading_string_matching_tpu import Matcher
-
-    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
-    for table in ("0", "1"):
-        monkeypatch.setenv("MSM_PALLAS_TABLE", table)
-        m = Matcher([b"http", b"xml"])
-        p = np.zeros((4, 0), np.uint8)
-        l = np.zeros(4, np.int32)
-        out = np.asarray(m.pallas.count_tiles([(p, l)]))
-        assert out.shape == (2,) and out.sum() == 0
-        tot, hits = m.pallas.count_tile_summary(p, l)
-        assert int(np.asarray(tot).sum()) == 0
-        assert not np.asarray(hits)[:4].any()
-
+    m = Matcher([b"http", b"xml"])
+    p = np.zeros((4, 0), np.uint8)
+    l = np.zeros(4, np.int32)
+    out = np.asarray(m.count(p, l))
+    assert out.shape == (2,) and out.sum() == 0
+    assert not np.asarray(m.count(p, l, per_packet=True)).any()
+    assert int(np.asarray(m.count_prepared(m.prepare(p, l))).sum()) == 0
 
 def test_zero_row_batches_count_to_zeros(reference_dir):
     m = Matcher(load_patterns(reference_dir / "strings.txt"), engine="window")
@@ -209,7 +187,7 @@ def test_zero_row_batches_count_to_zeros(reference_dir):
 def test_stream_checkpoint_roundtrip_extensionless(tmp_path, reference_dir):
     """Regression: save() wrote path.npz but load(path) looked for the bare
     path and raised FileNotFoundError."""
-    from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
+    from multithreading_string_matching.parallel.stream import StreamMatcher
 
     m = Matcher(load_patterns(reference_dir / "strings.txt"), engine="window")
     s = StreamMatcher(m)
@@ -228,7 +206,7 @@ def test_prepare_auto_plan_reuse_matches_explicit(reference_dir, monkeypatch):
     """packed='auto' reuses the decision plan on the Python path; tiles must
     equal an explicit packed=True prepare."""
     monkeypatch.setenv("MSM_NO_NATIVE", "1")
-    import multithreading_string_matching_tpu.io.native as native
+    import multithreading_string_matching.io.native as native
 
     native._lib, native._tried = None, False
     try:

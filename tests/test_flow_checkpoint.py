@@ -5,10 +5,10 @@ uninterrupted run, and built-in eviction bounds state growth."""
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.io.pcap import read_pcap, slice_pcap
-from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
-from multithreading_string_matching_tpu.parallel.flow_stream import (
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.io.pcap import read_pcap, slice_pcap
+from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
+from multithreading_string_matching.parallel.flow_stream import (
     FlowStreamMatcher,
 )
 
@@ -135,8 +135,8 @@ def test_fin_evict_drops_after_scan(tmp_path):
     """A FIN-carrying segment closes its flow AFTER its bytes are scanned;
     the half-signature state is forgotten, so a post-FIN continuation does
     not complete it (state was dropped, by policy)."""
-    from multithreading_string_matching_tpu.io.synth import _eth_ipv4_tcp
-    from multithreading_string_matching_tpu.io.pcap import (
+    from multithreading_string_matching.io.synth import _eth_ipv4_tcp
+    from multithreading_string_matching.io.pcap import (
         classic_global_header,
     )
     import struct
@@ -222,8 +222,8 @@ def test_fin_evict_requires_tcp():
 
 def test_evicted_counter_ignores_stateless_keys(tmp_path):
     """A bare FIN on a never-payload flow must not inflate flows_evicted."""
-    from multithreading_string_matching_tpu.io.synth import _eth_ipv4_tcp
-    from multithreading_string_matching_tpu.io.pcap import (
+    from multithreading_string_matching.io.synth import _eth_ipv4_tcp
+    from multithreading_string_matching.io.pcap import (
         classic_global_header,
     )
     import struct
@@ -276,7 +276,7 @@ def test_oneshot_reorder_span_guard():
     scrambling."""
     import pytest
 
-    from multithreading_string_matching_tpu.io.flows import reorder_plan
+    from multithreading_string_matching.io.flows import reorder_plan
 
     f = np.zeros(2, np.int64)
     seq = np.array([0, 2**31 - 10], np.int64)
@@ -294,7 +294,7 @@ def test_pattern_shard_double_swap_serves_current_tables():
 
     import jax
 
-    from multithreading_string_matching_tpu.parallel.pattern_shard import (
+    from multithreading_string_matching.parallel.pattern_shard import (
         count_matches_pattern_sharded,
         make_pattern_mesh,
     )

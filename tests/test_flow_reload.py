@@ -6,11 +6,11 @@ halo), AC states restart (documented boundary contract)."""
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.io.pcap import read_pcap, slice_pcap
-from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
-from multithreading_string_matching_tpu.io.flows import key_tuple_bytes
-from multithreading_string_matching_tpu.parallel.flow_stream import (
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.io.pcap import read_pcap, slice_pcap
+from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
+from multithreading_string_matching.io.flows import key_tuple_bytes
+from multithreading_string_matching.parallel.flow_stream import (
     FlowStreamMatcher,
 )
 

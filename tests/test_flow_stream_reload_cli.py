@@ -46,7 +46,7 @@ def _wait_consumed(pid, timeout: float) -> None:
 
 @pytest.mark.skipif(not hasattr(signal, "SIGHUP"), reason="no SIGHUP")
 def test_flow_stream_sighup_reload(tmp_path):
-    from multithreading_string_matching_tpu.io.synth import (
+    from multithreading_string_matching.io.synth import (
         synth_tcp_flows_pcap,
     )
 
@@ -67,7 +67,7 @@ def test_flow_stream_sighup_reload(tmp_path):
     with open(out_f, "wb") as out, open(err_f, "wb") as err:
         proc = subprocess.Popen(
             [sys.executable, "-u", "-m",
-             "multithreading_string_matching_tpu", "match",
+             "multithreading_string_matching", "match",
              "--pcap", "-", "--patterns", str(rules), "--mode", "tcp",
              "--flows", "--stream"],
             stdin=subprocess.PIPE, stdout=out, stderr=err, env=env,
@@ -99,7 +99,7 @@ def test_flow_stream_sighup_reload(tmp_path):
 
 @pytest.mark.skipif(not hasattr(signal, "SIGHUP"), reason="no SIGHUP")
 def test_flow_stream_sighup_bad_rules_keeps_old(tmp_path):
-    from multithreading_string_matching_tpu.io.synth import (
+    from multithreading_string_matching.io.synth import (
         synth_tcp_flows_pcap,
     )
 
@@ -118,7 +118,7 @@ def test_flow_stream_sighup_bad_rules_keeps_old(tmp_path):
     with open(out_f, "wb") as out, open(err_f, "wb") as err:
         proc = subprocess.Popen(
             [sys.executable, "-u", "-m",
-             "multithreading_string_matching_tpu", "match",
+             "multithreading_string_matching", "match",
              "--pcap", "-", "--patterns", str(rules), "--mode", "tcp",
              "--flows", "--stream"],
             stdin=subprocess.PIPE, stdout=out, stderr=err, env=env,
@@ -150,7 +150,7 @@ def test_flow_stream_sighup_json_epochs(tmp_path):
     cover only the last epoch)."""
     import json
 
-    from multithreading_string_matching_tpu.io.synth import (
+    from multithreading_string_matching.io.synth import (
         synth_tcp_flows_pcap,
     )
 
@@ -169,7 +169,7 @@ def test_flow_stream_sighup_json_epochs(tmp_path):
     with open(out_f, "wb") as out, open(err_f, "wb") as err:
         proc = subprocess.Popen(
             [sys.executable, "-u", "-m",
-             "multithreading_string_matching_tpu", "match",
+             "multithreading_string_matching", "match",
              "--pcap", "-", "--patterns", str(rules), "--mode", "tcp",
              "--flows", "--stream", "--json"],
             stdin=subprocess.PIPE, stdout=out, stderr=err, env=env,

@@ -11,16 +11,16 @@ import numpy as np
 import pytest
 
 from oracle import count_overlapping
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.io.decode import extract_payloads
-from multithreading_string_matching_tpu.io.flows import (
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.io.decode import extract_payloads
+from multithreading_string_matching.io.flows import (
     count_flows_chunked,
     extract_flows,
     flow_keys,
 )
-from multithreading_string_matching_tpu.io.pcap import read_pcap, slice_pcap
-from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
-from multithreading_string_matching_tpu.parallel.flow_stream import (
+from multithreading_string_matching.io.pcap import read_pcap, slice_pcap
+from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
+from multithreading_string_matching.parallel.flow_stream import (
     FlowStreamMatcher,
 )
 
@@ -124,8 +124,8 @@ def test_flow_keys_truncated_capture(tmp_path):
 
 
 def test_empty_and_udp_mode(tmp_path):
-    from multithreading_string_matching_tpu.io.pcap import classic_global_header
-    from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
+    from multithreading_string_matching.io.pcap import classic_global_header
+    from multithreading_string_matching.io.synth import synth_udp_pcap
 
     p = tmp_path / "empty.pcap"
     p.write_bytes(classic_global_header())
@@ -218,7 +218,7 @@ def test_packet_of_offset_split(split_capture):
 def test_cli_match_flows(split_capture, tmp_path, capsys):
     import json
 
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     pats = tmp_path / "p.txt"
     pats.write_text("SIGNATURE zz pp")
@@ -241,7 +241,7 @@ def test_config_file_drives_flows(split_capture, tmp_path, capsys):
     """The 'config files fully drive match' invariant extends to flows."""
     import json
 
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     pats = tmp_path / "p.txt"
     pats.write_text("SIGNATURE zz pp")
@@ -261,7 +261,7 @@ def test_cli_match_flows_stream(split_capture, tmp_path, capsys):
     counts identically to one-shot reassembly."""
     import json
 
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     pats = tmp_path / "p.txt"
     pats.write_text("SIGNATURE zz pp")
@@ -281,7 +281,7 @@ def test_cli_match_flows_offsets(split_capture, tmp_path, capsys):
     stream with the flow 5-tuple alongside; counts == the offsets rows."""
     import json
 
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     pats = tmp_path / "p.txt"
     pats.write_text("SIGNATURE zz pp")
@@ -390,7 +390,7 @@ class TestFlowStream:
         the single-device stream, states surviving rounds per shard."""
         import jax
 
-        from multithreading_string_matching_tpu.parallel.mesh import make_mesh
+        from multithreading_string_matching.parallel.mesh import make_mesh
 
         pcap = read_pcap(split_capture)
         m = Matcher(PATS, engine="ac")
@@ -434,7 +434,7 @@ class TestFlowRound5:
     def test_sharded_window_equals_unsharded(self, split_capture):
         import jax
 
-        from multithreading_string_matching_tpu.parallel.mesh import make_mesh
+        from multithreading_string_matching.parallel.mesh import make_mesh
 
         pcap = read_pcap(split_capture)
         m = Matcher(PATS, engine="window")
@@ -451,7 +451,7 @@ class TestFlowRound5:
         the fold-idempotence contract."""
         import jax
 
-        from multithreading_string_matching_tpu.parallel.mesh import make_mesh
+        from multithreading_string_matching.parallel.mesh import make_mesh
 
         mesh = make_mesh(jax.devices("cpu")[:4])
         p1, p2 = tmp_path / "s1.pcap", tmp_path / "s2.pcap"
@@ -483,55 +483,6 @@ class TestFlowRound5:
         self._feed(fs, pcap, 3)
         assert fs.counts().tolist() == _want([PAY_A, PAY_B])
 
-    def test_pallas_halo_kernel_differential(self):
-        """The VMEM halo kernel == window_stream_chunk on random lanes with
-        random halo fills and pending lengths (incl. NUL patterns forcing
-        fit masks), interpret mode."""
-        import jax.numpy as jnp
-
-        from multithreading_string_matching_tpu.ops.pallas_window import (
-            PallasWindowMatcher,
-        )
-        from multithreading_string_matching_tpu.ops.window import (
-            StreamHalo,
-            WindowProgram,
-            window_stream_chunk,
-        )
-
-        rng = np.random.default_rng(44)
-        for pats in (
-            [b"ab", b"bca", b"aaaa", b"abcab"],
-            [b"a\x00b", b"\x00c", b"ca"],
-        ):
-            wp = WindowProgram.build(pats)
-            pm = PallasWindowMatcher(wp, row_tile=8, interpret=True,
-                                     assume_zero_padded=True)
-            H = pm.halo_width
-            F, C = 16, 64
-            for _ in range(5):
-                rel = rng.integers(0, C + 1, size=F).astype(np.int32)
-                fill = rng.integers(0, H + 1, size=F).astype(np.int32)
-                buf = rng.integers(0x60, 0x64, size=(F, C)).astype(np.uint8)
-                buf[rng.random(size=buf.shape) < 0.1] = 0
-                cols = np.arange(C)[None, :]
-                buf = np.where(cols < rel[:, None], buf, 0).astype(np.uint8)
-                halo = np.zeros((F, H), np.uint8)
-                for i in range(F):
-                    if fill[i]:
-                        halo[i, H - fill[i]:] = rng.integers(
-                            0x60, 0x64, size=fill[i]
-                        )
-                want, _ = window_stream_chunk(
-                    wp, buf, rel,
-                    StreamHalo(jnp.asarray(halo), jnp.asarray(fill)),
-                    expand_duplicates=False,
-                )
-                x = np.concatenate([halo, buf], axis=1)
-                eff = np.minimum(rel.astype(np.int64) + H,
-                                 x.shape[1]).astype(np.int32)
-                got = pm.count_tile_halo(x, eff, H - fill)
-                assert (np.asarray(got) == np.asarray(want)).all(), pats
-
     def test_device_accumulator_drains(self, split_capture, monkeypatch):
         """Counts survive a forced mid-stream drain (int32 wrap guard)."""
         pcap = read_pcap(split_capture)
@@ -553,12 +504,12 @@ class TestFlowRound5:
 class TestSubLaneRounds:
     """Round-5 wide-round handling: _expand_round_lanes re-lays a round as
     fixed-width sub-lanes; totals must equal the flat round for any
-    geometry, through the interpret-mode Pallas halo kernel too."""
+    geometry."""
 
     def test_expand_round_lanes_differential(self):
         import jax.numpy as jnp
 
-        from multithreading_string_matching_tpu.ops.window import (
+        from multithreading_string_matching.ops.window import (
             StreamHalo,
             window_stream_chunk,
         )
@@ -595,7 +546,7 @@ class TestSubLaneRounds:
             x2, eff2, ms2 = fs._expand_round_lanes(buf, rel, halo, fill, 16)
             # Evaluate the sub-lane tile with the same masked-window
             # algebra (min_end=H per sub-lane).
-            from multithreading_string_matching_tpu.ops.window import (
+            from multithreading_string_matching.ops.window import (
                 _window_one,
             )
 
@@ -608,14 +559,12 @@ class TestSubLaneRounds:
             )
             assert (np.asarray(got) == np.asarray(want)).all(), trial
 
-    def test_interpret_pallas_sublane_stream(self, split_capture,
-                                             monkeypatch):
-        """Unsharded pallas flow rounds (interpret mode) through the
-        sub-lane path: counts equal the AC stream."""
-        monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
+    def test_interpret_pallas_sublane_stream(self, split_capture):
+        """Window flow rounds of a default ('pallas') matcher: counts
+        equal the concatenated-flow oracle."""
         pcap = read_pcap(split_capture)
         m = Matcher(PATS, engine="pallas")
-        assert m._resolve_engine(None) == "pallas"
+        assert m._resolve_engine(None) == "window"
         fs = FlowStreamMatcher(m, "tcp", engine="window", scan_bytes=10,
                                width=8, min_lanes=8)
         for s in range(0, pcap.num_packets, 3):

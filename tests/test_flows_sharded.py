@@ -7,8 +7,8 @@ import json
 
 import pytest
 
-from multithreading_string_matching_tpu.cli import main
-from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
+from multithreading_string_matching.cli import main
+from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
 
 FLOWS = [
     (("10.0.0.1", "10.0.0.2", 1111, 80), b"xxSIGNATUREyy", [4, 5, 4]),
@@ -92,8 +92,8 @@ def test_sharded_empty_capture(tmp_path, capsys):
 
 
 def _dump_equal(cap, strings, tmp_path, capsys, *extra):
-    from multithreading_string_matching_tpu.io.flows import extract_flows
-    from multithreading_string_matching_tpu.io.pcap import read_pcap
+    from multithreading_string_matching.io.flows import extract_flows
+    from multithreading_string_matching.io.pcap import read_pcap
 
     out = tmp_path / ("dump_" + "_".join(e.strip("-") for e in extra) or "d")
     out = out.with_suffix(".pcap")

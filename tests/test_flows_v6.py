@@ -5,11 +5,11 @@ instead of erroring."""
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.io.flows import extract_flows, flow_keys
-from multithreading_string_matching_tpu.io.pcap import read_pcap
-from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
-from multithreading_string_matching_tpu.parallel.flow_stream import (
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.io.flows import extract_flows, flow_keys
+from multithreading_string_matching.io.pcap import read_pcap
+from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
+from multithreading_string_matching.parallel.flow_stream import (
     FlowStreamMatcher,
 )
 
@@ -126,7 +126,7 @@ def test_cli_flows_ipv6(tmp_path):
 
     def run(*extra):
         return subprocess.run(
-            [sys.executable, "-m", "multithreading_string_matching_tpu",
+            [sys.executable, "-m", "multithreading_string_matching",
              "match", "--pcap", str(path), "--patterns", str(strings),
              "--mode", "tcp", "--flows", "--json", *extra],
             capture_output=True, text=True, env=env, timeout=300,

@@ -7,12 +7,12 @@ twin — same keys, same counts, same reorder behavior."""
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.io.decode import l2_sizes
-from multithreading_string_matching_tpu.io.flows import extract_flows, flow_keys
-from multithreading_string_matching_tpu.io.pcap import read_pcap
-from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
-from multithreading_string_matching_tpu.parallel.flow_stream import (
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.io.decode import l2_sizes
+from multithreading_string_matching.io.flows import extract_flows, flow_keys
+from multithreading_string_matching.io.pcap import read_pcap
+from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
+from multithreading_string_matching.parallel.flow_stream import (
     FlowStreamMatcher,
 )
 
@@ -138,7 +138,7 @@ def test_cli_flows_vlan(tmp_path):
 
     def run(*extra):
         return subprocess.run(
-            [sys.executable, "-m", "multithreading_string_matching_tpu",
+            [sys.executable, "-m", "multithreading_string_matching",
              "match", "--pcap", str(tagged), "--patterns", str(strings),
              "--mode", "tcp", "--flows", "--json", *extra],
             capture_output=True, text=True, env=env, timeout=300,

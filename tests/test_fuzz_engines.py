@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 
 import oracle
-from multithreading_string_matching_tpu import Matcher
+from multithreading_string_matching import Matcher
 
 CASES = [
     # (seed, num_payloads, max_len, alphabet, patterns)
@@ -44,19 +44,13 @@ def test_engines_match_oracle(seed, n, lmax, alpha, pats):
         got_pp = m.count(payloads, lengths, engine=engine, per_packet=True)
         assert (got_pp.sum(axis=0) == want).all(), f"{engine} per-packet"
 
-    # Pallas (interpret mode on CPU) via the staged-tile path; prepare()
-    # sanitizes padding, so feed it deliberately dirty buffers.
+    # The staged-tile path; prepare() sanitizes padding, so feed it
+    # deliberately dirty buffers.
     dirty = payloads.copy()
     cols = np.arange(lmax)[None, :]
     dirty[cols >= lengths[:, None]] = 0xEE
-    import os
-
-    os.environ["MSM_PALLAS_INTERPRET"] = "1"
-    try:
-        got = m.count(dirty, lengths, engine="pallas")
-    finally:
-        del os.environ["MSM_PALLAS_INTERPRET"]
-    assert (got == want).all(), "pallas"
+    got = np.asarray(m.count_prepared(m.prepare(dirty, lengths)))
+    assert (got == want).all(), "staged"
 
 
 def _fold(b: bytes) -> bytes:
@@ -89,13 +83,12 @@ def test_feature_combination_fuzz(seed):
     for engine in ("window", "ac", "kmp"):
         got = m.count(payloads, lengths, engine=engine)
         assert (got == want).all(), engine
-    # Staged paths: packed staging must refuse silently-inexact packing for
+    # Staged paths: 'auto' packing must refuse silently-inexact packing for
     # NUL patterns (falls back internally) and still match the oracle.
-    for staging in ("auto", "bucketed"):
-        prep = m.prepare(payloads, lengths)
-        got = np.asarray(m.count(payloads, lengths, engine="window",
-                                 staging=staging))
-        assert (got == want).all(), staging
+    for packed in ("auto", False):
+        prep = m.prepare(payloads, lengths, packed=packed)
+        got = np.asarray(m.count_prepared(prep, engine="window"))
+        assert (got == want).all(), packed
     # Guaranteed hits so the test cannot pass vacuously.
     assert want[0] == want[1] == want[4] and want[0] >= 1
     assert want[2] >= 1

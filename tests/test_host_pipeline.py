@@ -12,12 +12,12 @@ import time
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher, load_patterns
-from multithreading_string_matching_tpu.parallel.host import (
+from multithreading_string_matching import Matcher, load_patterns
+from multithreading_string_matching.parallel.host import (
     map_prefetch,
     prefetch_iter,
 )
-from multithreading_string_matching_tpu.parallel.pipeline import (
+from multithreading_string_matching.parallel.pipeline import (
     count_pcap_streamed,
     scan_pcap_streamed,
 )
@@ -199,7 +199,7 @@ def test_native_stale_library_rebuilds_or_falls_back(tmp_path, monkeypatch):
     fallback — never an AttributeError out of native.available()."""
     import subprocess
 
-    from multithreading_string_matching_tpu.io import native
+    from multithreading_string_matching.io import native
 
     stub = tmp_path / "stub.cpp"
     stub.write_text("extern \"C\" int msm_nothing() { return 0; }\n")
@@ -248,7 +248,7 @@ def test_streamed_counts_with_host_workers(reference_dir, workers):
 def test_streamed_attribution_with_host_workers(reference_dir, tmp_path):
     """Attribution (offsets + dump) is order-dependent: the threaded host
     pipeline must preserve ORIGINAL capture packet numbering exactly."""
-    from multithreading_string_matching_tpu.io.pcap import read_pcap
+    from multithreading_string_matching.io.pcap import read_pcap
 
     matcher = Matcher(load_patterns(reference_dir / "strings.txt"))
     path = reference_dir / "udp_1000.pcap"
@@ -276,7 +276,7 @@ def test_streamed_host_workers_ingest_error_propagates(tmp_path):
 
 
 def test_cli_host_workers_requires_stream(reference_dir, capsys):
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     with pytest.raises(SystemExit, match="--host-workers requires --stream"):
         main([
@@ -289,7 +289,7 @@ def test_cli_host_workers_requires_stream(reference_dir, capsys):
 def test_cli_stream_host_workers_counts(reference_dir, capsys):
     import json
 
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     rc = main([
         "match", "--pcap", str(reference_dir / "udp.pcap"),

@@ -2,7 +2,7 @@ import numpy as np
 import pytest
 
 from oracle import count_overlapping
-from multithreading_string_matching_tpu.models.kmp import (
+from multithreading_string_matching.models.kmp import (
     lps_table,
     kmp_dfa,
     stack_kmp_dfas,

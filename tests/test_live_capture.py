@@ -14,9 +14,9 @@ import time
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.io.live import LiveSource
-from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.io.live import LiveSource
+from multithreading_string_matching.parallel.stream import StreamMatcher
 
 
 def _can_raw_socket() -> bool:
@@ -48,7 +48,7 @@ def _eth_frame(proto: int, payload: bytes = b"", v6: bool = False) -> bytes:
 def test_bpf_program_constants():
     """The compiled-in cBPF programs are exactly tcpdump -dd 'udp'/'tcp'
     over EN10MB (what the reference's pcap_compile produces)."""
-    from multithreading_string_matching_tpu.io.live import bpf_protocol_program
+    from multithreading_string_matching.io.live import bpf_protocol_program
 
     udp = bpf_protocol_program("udp")
     assert udp[0] == (0x28, 0, 0, 12)         # ldh ethertype
@@ -66,7 +66,7 @@ def test_bpf_program_semantics_simulated():
     """Accept/reject behavior of the kernel filter, proven against the pure
     cBPF interpreter: v4/v6 frames of the right protocol pass, everything
     else (wrong proto, wrong ethertype, runts) drops."""
-    from multithreading_string_matching_tpu.io.live import (
+    from multithreading_string_matching.io.live import (
         bpf_protocol_program,
         bpf_simulate,
     )
@@ -344,7 +344,7 @@ class _FakeRing(bytearray):
 def _fake_ring_source(snaplen=65535):
     """A LiveSource wired to an in-memory fake ring: no kernel needed to
     unit-test the block walk / drain logic."""
-    from multithreading_string_matching_tpu.io import live
+    from multithreading_string_matching.io import live
 
     source = LiveSource("lo", snaplen=snaplen, timeout_s=0.05, ring=True)
     source._ring_map = _FakeRing(live._RING_BLOCK_SIZE * live._RING_BLOCK_NR)
@@ -357,7 +357,7 @@ def _write_fake_block(mm, blk, frames):
     """Lay out a USER-owned tpacket3 block holding the given frames, each a
     (frame_bytes, tp_len) pair."""
     import struct as st
-    from multithreading_string_matching_tpu.io import live
+    from multithreading_string_matching.io import live
 
     st.pack_into("<I", mm, blk + live._BD_STATUS, live.TP_STATUS_USER)
     first_off = 48
@@ -400,7 +400,7 @@ def test_ring_stop_drain_is_bounded_under_sustained_traffic():
     every block it gets back (sustained traffic): it takes at most one ring
     pass, then leaves the rest to the kernel (ADVICE r2 medium).  Simulated
     by re-marking each block USER immediately after _read_block returns it."""
-    from multithreading_string_matching_tpu.io import live
+    from multithreading_string_matching.io import live
 
     source, peer = _fake_ring_source()
     mm = source._ring_map

@@ -28,7 +28,7 @@ def _wait_for(path, needle: str, timeout: float) -> str:
 
 @pytest.mark.skipif(not hasattr(signal, "SIGHUP"), reason="no SIGHUP")
 def test_live_sighup_reloads_rules(tmp_path):
-    from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
+    from multithreading_string_matching.io.synth import synth_udp_pcap
 
     cap = tmp_path / "replay.pcap"
     # Big enough that replay is still running when the signal lands (each
@@ -43,7 +43,7 @@ def test_live_sighup_reloads_rules(tmp_path):
     env = dict(os.environ, MSM_PLATFORM="cpu", PYTHONUNBUFFERED="1")
     with open(out_f, "wb") as out, open(err_f, "wb") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-u", "-m", "multithreading_string_matching_tpu",
+            [sys.executable, "-u", "-m", "multithreading_string_matching",
              "live", str(cap), str(rules), "4", "udp"],
             stdout=out, stderr=err, env=env,
         )
@@ -75,7 +75,7 @@ def test_live_sighup_reloads_rules(tmp_path):
 
 @pytest.mark.skipif(not hasattr(signal, "SIGHUP"), reason="no SIGHUP")
 def test_live_sighup_bad_rules_keeps_old_set(tmp_path):
-    from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
+    from multithreading_string_matching.io.synth import synth_udp_pcap
 
     cap = tmp_path / "replay.pcap"
     synth_udp_pcap(cap, 50_000, payload_len=96, patterns=[b"alpha"],
@@ -88,7 +88,7 @@ def test_live_sighup_bad_rules_keeps_old_set(tmp_path):
     env = dict(os.environ, MSM_PLATFORM="cpu", PYTHONUNBUFFERED="1")
     with open(out_f, "wb") as out, open(err_f, "wb") as err:
         proc = subprocess.Popen(
-            [sys.executable, "-u", "-m", "multithreading_string_matching_tpu",
+            [sys.executable, "-u", "-m", "multithreading_string_matching",
              "live", str(cap), str(rules), "4", "udp"],
             stdout=out, stderr=err, env=env,
         )

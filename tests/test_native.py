@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu.io import native
-from multithreading_string_matching_tpu.io.pcap import read_pcap
-from multithreading_string_matching_tpu.io.decode import decode_headers, extract_payloads
+from multithreading_string_matching.io import native
+from multithreading_string_matching.io.pcap import read_pcap
+from multithreading_string_matching.io.decode import decode_headers, extract_payloads
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="no C++ toolchain for the native fast path"
@@ -59,7 +59,7 @@ def test_native_pack_equals_python(monkeypatch):
     """msm_pack_plan/msm_pack_fill must reproduce ops/bucketing.pack_rows'
     Python plan+materialize exactly (row order, separators, fills) on
     adversarial length mixes."""
-    from multithreading_string_matching_tpu.ops import bucketing
+    from multithreading_string_matching.ops import bucketing
 
     rng = np.random.default_rng(7)
     cases = [
@@ -90,7 +90,7 @@ def test_native_pack_equals_python(monkeypatch):
 
 
 def test_native_pack_rejects_oversize():
-    from multithreading_string_matching_tpu.ops.bucketing import pack_rows
+    from multithreading_string_matching.ops.bucketing import pack_rows
 
     with pytest.raises(ValueError, match="exceeds pack width"):
         pack_rows(np.zeros((1, 4096), np.uint8), np.array([3000]), 2048)
@@ -99,7 +99,7 @@ def test_native_pack_rejects_oversize():
 def test_native_plan_rows_rejects_oversize():
     """plan_rows mirrors the Python spec's oversized-segment ValueError — a
     plan with fill > width would send msm_pack_fill's memcpy past the row."""
-    from multithreading_string_matching_tpu.io import native
+    from multithreading_string_matching.io import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -111,7 +111,7 @@ def test_native_plan_rows_rejects_oversize():
 def test_pack_rejects_length_beyond_payload_width():
     """Regression: the native memcpy would read heap bytes past the payload
     row where the Python path raised; both must raise the same ValueError."""
-    from multithreading_string_matching_tpu.ops.bucketing import pack_rows
+    from multithreading_string_matching.ops.bucketing import pack_rows
 
     pl = np.full((4, 100), 0x41, np.uint8)
     lens = np.array([150, 10, 10, 10], dtype=np.int64)
@@ -120,7 +120,7 @@ def test_pack_rejects_length_beyond_payload_width():
 
 
 def test_matcher_validates_patterns_eagerly():
-    from multithreading_string_matching_tpu import Matcher
+    from multithreading_string_matching import Matcher
 
     with pytest.raises(ValueError, match="non-empty"):
         Matcher([])
@@ -136,7 +136,7 @@ def test_native_decode_fuzz_vs_numpy(tmp_path, mode, strict):
     not just on the bundled fixtures."""
     import struct
 
-    from multithreading_string_matching_tpu.io.pcap import read_pcap
+    from multithreading_string_matching.io.pcap import read_pcap
 
     rng = np.random.default_rng(97 + (mode == "tcp") + 2 * strict)
     out = bytearray(struct.pack("<IHHiIII", 0xA1B2C3D4, 2, 4, 0, 0, 65535, 1))

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 from oracle import count_overlapping
-from multithreading_string_matching_tpu import Matcher
+from multithreading_string_matching import Matcher
 
 PATS = [b"HTTP", b"http", b"AbC", b"zz", b"HTTP", b"[X]"]
 
@@ -47,18 +47,16 @@ def test_nocase_engines_match_folded_oracle(engine):
     assert (plain <= got).all() and (plain != got).any()
 
 
-def test_nocase_pallas_staged_paths(monkeypatch):
-    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
+def test_nocase_pallas_staged_paths():
     payloads, lengths = _mixed_corpus(32)
     want = _oracle_nocase(payloads, lengths, PATS)
-    for table in ("0", "1"):
-        monkeypatch.setenv("MSM_PALLAS_TABLE", table)
-        m = Matcher(PATS, case_insensitive=True)
-        for staging in ("packed", "bucketed"):
-            got = m.count(payloads, lengths, staging=staging)
-            assert (got == want).all(), (table, staging)
-        pp = m.count(payloads, lengths, per_packet=True)
-        assert (pp.sum(axis=0) == want).all()
+    m = Matcher(PATS, case_insensitive=True)
+    for packed in (True, False):
+        got = np.asarray(m.count_prepared(m.prepare(payloads, lengths,
+                                                    packed=packed)))
+        assert (got == want).all(), packed
+    pp = m.count(payloads, lengths, per_packet=True)
+    assert (pp.sum(axis=0) == want).all()
 
 
 def test_nocase_case_variants_fold_together():
@@ -70,13 +68,13 @@ def test_nocase_case_variants_fold_together():
 
 
 def test_nocase_streaming_and_pipeline(tmp_path):
-    from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
-    from multithreading_string_matching_tpu.io.pcap import read_pcap
-    from multithreading_string_matching_tpu.io.decode import extract_payloads
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.io.synth import synth_udp_pcap
+    from multithreading_string_matching.io.pcap import read_pcap
+    from multithreading_string_matching.io.decode import extract_payloads
+    from multithreading_string_matching.parallel.pipeline import (
         count_pcap_pipelined, count_pcap_streamed,
     )
-    from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
+    from multithreading_string_matching.parallel.stream import StreamMatcher
 
     pcap = tmp_path / "mix.pcap"
     synth_udp_pcap(
@@ -104,7 +102,7 @@ def test_nocase_streaming_and_pipeline(tmp_path):
 
 
 def test_nocase_find_matches_and_cli(reference_dir, tmp_path, capsys):
-    from multithreading_string_matching_tpu.cli import main
+    from multithreading_string_matching.cli import main
 
     payloads = np.zeros((2, 16), np.uint8)
     payloads[0, :4] = np.frombuffer(b"HtTp", np.uint8)
@@ -115,7 +113,7 @@ def test_nocase_find_matches_and_cli(reference_dir, tmp_path, capsys):
     assert rows.tolist() == [[0, 0, 0], [1, 2, 0]]
 
     # CLI --nocase end-to-end on a synthetic capture.
-    from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
+    from multithreading_string_matching.io.synth import synth_udp_pcap
 
     pcap = tmp_path / "cli.pcap"
     synth_udp_pcap(pcap, 30, payload_len=64, patterns=[b"NeEdLe"],

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu.ops.window import WindowProgram, find_matches
+from multithreading_string_matching.ops.window import WindowProgram, find_matches
 
 PATS = [b"ab", b"aba", b"b", b"ca", b"ab"]
 
@@ -36,7 +36,7 @@ def test_offsets_match_naive():
 
 
 def test_offsets_agree_with_counts(reference_dir):
-    from multithreading_string_matching_tpu import (
+    from multithreading_string_matching import (
         Matcher, extract_payloads, load_patterns, read_pcap,
     )
 
@@ -58,7 +58,7 @@ def test_offsets_random_differential(seed):
     deterministically): random binary payloads x adversarial pattern mixes
     (duplicates, embedded NULs, single bytes, near-payload-length) against
     the bytes.find position oracle, plus the rows->counts invariant."""
-    from multithreading_string_matching_tpu import Matcher
+    from multithreading_string_matching import Matcher
 
     rng = np.random.default_rng(seed)
     pats = []

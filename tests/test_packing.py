@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 
 import oracle
-from multithreading_string_matching_tpu import Matcher, load_patterns
-from multithreading_string_matching_tpu.ops.bucketing import pack_rows
+from multithreading_string_matching import Matcher, load_patterns
+from multithreading_string_matching.ops.bucketing import pack_rows
 
 
 def test_pack_rows_geometry():
@@ -72,13 +72,7 @@ def test_cross_segment_match_killed():
     payloads[1, :4] = np.frombuffer(b"abyy", np.uint8)
     lengths = np.array([4, 4], np.int32)
     prep = m.prepare(payloads, lengths, packed=True, pack_width=128)
-    import os
-
-    os.environ["MSM_PALLAS_INTERPRET"] = "1"
-    try:
-        got = np.asarray(m.count_prepared(prep, engine="pallas"))
-    finally:
-        del os.environ["MSM_PALLAS_INTERPRET"]
+    got = np.asarray(m.count_prepared(prep, engine="pallas"))
     assert got.tolist() == [0, 2]  # 'abab' would be 1 without the separator
     for engine in ("window", "ac", "kmp"):
         assert np.asarray(m.count_prepared(prep, engine=engine)).tolist() == [0, 2], engine
@@ -104,8 +98,8 @@ def test_tile_counter_fuzz_feed_splits():
     """PackedTileCounter property fuzz: ANY split of a corpus into feeds of
     random sizes/widths — including oversized rows, empty feeds, nocase
     folding, and mid-stream totals() — equals the one-shot scan."""
-    from multithreading_string_matching_tpu.api import Matcher
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.api import Matcher
+    from multithreading_string_matching.parallel.pipeline import (
         PackedTileCounter,
     )
 
@@ -149,7 +143,7 @@ def test_tile_counter_fuzz_feed_splits():
 
 
 def test_packed_conformance_udp1000(reference_dir):
-    from multithreading_string_matching_tpu import extract_payloads, read_pcap
+    from multithreading_string_matching import extract_payloads, read_pcap
 
     m = Matcher(load_patterns(reference_dir / "strings.txt"))
     batch = extract_payloads(read_pcap(reference_dir / "udp_1000.pcap"), "udp")
@@ -177,18 +171,13 @@ def test_auto_declines_oversized_payload():
     lengths = np.full(4, 3000, np.int32)
     prep = m.prepare(payloads, lengths, packed="auto")
     assert not prep.packed
-    import os
-
-    os.environ["MSM_PALLAS_INTERPRET"] = "1"
-    try:
-        got = m.count(payloads, lengths)  # pallas path; must not raise
-    finally:
-        del os.environ["MSM_PALLAS_INTERPRET"]
+    got = m.count(payloads, lengths)  # default path; must not raise
     assert got[0] == 1
+    assert np.asarray(m.count_prepared(prep))[0] == 1
 
 
 def test_bucket_plan_caps_tile_rows():
-    from multithreading_string_matching_tpu.ops.bucketing import bucket_plan
+    from multithreading_string_matching.ops.bucketing import bucket_plan
 
     plan = bucket_plan(np.full(10000, 96), n_tile=2048)
     assert all(len(i) <= 2048 for i, _ in plan)

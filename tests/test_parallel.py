@@ -9,34 +9,43 @@ import numpy as np
 import pytest
 import jax
 
-from multithreading_string_matching_tpu import (
+from multithreading_string_matching import (
     Matcher,
     extract_payloads,
-    load_patterns,
     read_pcap,
 )
-from multithreading_string_matching_tpu.parallel.mesh import (
+from multithreading_string_matching.parallel.mesh import (
     count_matches_sharded,
     make_mesh,
     shard_batch,
 )
-from multithreading_string_matching_tpu.parallel.pipeline import (
+from multithreading_string_matching.parallel.pipeline import (
     count_pcap_pipelined,
     iter_batches,
 )
-from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
-from multithreading_string_matching_tpu.io.live import FileReplaySource
+from multithreading_string_matching.parallel.stream import StreamMatcher
+from multithreading_string_matching.io.live import FileReplaySource
 
 
 @pytest.fixture(scope="module")
-def matcher(strings_path):
-    return Matcher.from_file(strings_path)
+def matcher():
+    """A seeded 97-entry rule-file-shaped set (2-12 B, duplicates kept)."""
+    from multithreading_string_matching.io.synth import synth_patterns
+
+    return Matcher(synth_patterns(96, seed=1) + [b"http"])
 
 
 @pytest.fixture(scope="module")
-def udp1000(reference_dir, matcher):
-    batch = extract_payloads(read_pcap(reference_dir / "udp_1000.pcap"), "udp")
+def udp1000(tmp_path_factory, matcher):
+    """A seeded 1000-packet UDP capture with the set planted in it."""
+    from multithreading_string_matching.io.synth import synth_udp_pcap
+
+    path = tmp_path_factory.mktemp("udp1000") / "udp_1000.pcap"
+    synth_udp_pcap(path, 1000, payload_len=256, payload_len_jitter=192,
+                   patterns=matcher.patterns, plant_rate=0.5, seed=1000)
+    batch = extract_payloads(read_pcap(path), "udp")
     counts = matcher.count_batch(batch)
+    assert int(counts.sum()) > 0
     return batch, counts
 
 
@@ -51,36 +60,9 @@ def test_sharded_equals_single(reference_dir, matcher, udp1000):
         assert (got == want).all(), f"ndev={ndev}"
 
 
-def test_sharded_pallas_equals_single(matcher, udp1000):
-    """The VMEM kernel under shard_map (interpret-mode on the CPU mesh):
-    per-shard pallas_call + psum must match the one-shot counts."""
-    from multithreading_string_matching_tpu.ops.pallas_window import (
-        PallasWindowMatcher,
-    )
-
-    batch, want = udp1000
-    pm = PallasWindowMatcher(
-        matcher.window, row_tile=64, interpret=True, assume_zero_padded=True
-    )
-    for ndev in (2, 8):
-        mesh = make_mesh(jax.devices("cpu")[:ndev])
-        got = count_matches_sharded(
-            matcher.cac, batch.payloads, batch.lengths, mesh,
-            dup_map=matcher.window.dup_map, engine="pallas", pallas_matcher=pm,
-        )
-        assert (got == want).all(), f"ndev={ndev}"
-
-
-def test_sharded_pallas_table_build_order(monkeypatch):
-    """The table kernel's raw _one_tile returns counts sorted by word-count
-    class; the sharded path must restore BUILD order (advisor round-1 high:
-    mixed-length sets through MSM_PALLAS_TABLE=1 + shard_map silently
-    permuted per-pattern counts)."""
-    from multithreading_string_matching_tpu.ops.pallas_table import (
-        PallasTableMatcher,
-    )
-
-    monkeypatch.setenv("MSM_PALLAS_TABLE", "1")
+def test_sharded_pallas_table_build_order():
+    """Per-shard counts come back in BUILD order under shard_map for a
+    mixed-length set, window and AC engines alike."""
     # Mixed word counts (1..3 words) in deliberately non-sorted order, with
     # distinct per-pattern counts so any permutation is visible.
     patterns = [b"abcdefghi", b"xy", b"abcd", b"hello", b"zq"]
@@ -96,23 +78,22 @@ def test_sharded_pallas_table_build_order(monkeypatch):
     cols = np.arange(128)[None, :]
     payloads = np.where(cols < lengths[:, None], payloads, 0).astype(np.uint8)
     want = m.count(payloads, lengths, engine="window", bucketed=False)
-    pm = PallasTableMatcher(
-        m.window, row_tile=32, interpret=True, assume_zero_padded=True
-    )
+    assert (want >= np.arange(1, 6)).all()
     for ndev in (2, 8):
         mesh = make_mesh(jax.devices("cpu")[:ndev])
-        got = count_matches_sharded(
-            m.cac, payloads, lengths, mesh,
-            dup_map=m.window.dup_map, engine="pallas", pallas_matcher=pm,
-        )
-        assert (got == want).all(), f"ndev={ndev}: {got} != {want}"
+        for engine, dup in (("window", m.window.dup_map),
+                            ("ac", m.ac.dup_map)):
+            got = count_matches_sharded(
+                m.cac, payloads, lengths, mesh, dup_map=dup, engine=engine,
+                window=m.window,
+            )
+            assert (got == want).all(), f"{engine} ndev={ndev}: {got}"
 
 
-def test_count_rows_sharded_equals_per_packet(matcher, udp1000, monkeypatch):
+def test_count_rows_sharded_equals_per_packet(matcher, udp1000):
     """Row-sharded per-packet attribution: counts stay with their rows (no
-    collective) and equal the single-device per-packet matrix — window and
-    both Pallas kernel classes (interpret mode via MSM_PALLAS_INTERPRET)."""
-    from multithreading_string_matching_tpu.parallel.mesh import (
+    collective) and equal the single-device per-packet matrix."""
+    from multithreading_string_matching.parallel.mesh import (
         count_rows_sharded,
     )
 
@@ -123,27 +104,15 @@ def test_count_rows_sharded_equals_per_packet(matcher, udp1000, monkeypatch):
     )
     for ndev in (2, 8):
         mesh = make_mesh(jax.devices("cpu")[:ndev])
-        got = count_rows_sharded(
-            matcher, batch.payloads, batch.lengths, mesh, engine="window"
-        )
+        got = count_rows_sharded(matcher, batch.payloads, batch.lengths, mesh)
         assert (got == want).all(), f"window ndev={ndev}"
 
-    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
-    for table in ("0", "1"):
-        monkeypatch.setenv("MSM_PALLAS_TABLE", table)
-        m2 = Matcher(matcher.patterns)  # fresh: kernel choice is cached
-        mesh = make_mesh(jax.devices("cpu")[:4])
-        got = count_rows_sharded(
-            m2, batch.payloads, batch.lengths, mesh, engine="pallas"
-        )
-        assert (got == want).all(), f"pallas table={table}"
 
-
-def test_count_rows_summary_matches_matrix(matcher, udp1000, monkeypatch):
+def test_count_rows_summary_matches_matrix(matcher, udp1000):
     """The device-side attribution summary (unique totals + row-hit flags)
-    must equal the reductions of the full per-packet matrix — window and
-    both Pallas kernel classes, across mesh sizes."""
-    from multithreading_string_matching_tpu.parallel.mesh import (
+    must equal the reductions of the full per-packet matrix, across mesh
+    sizes."""
+    from multithreading_string_matching.parallel.mesh import (
         count_rows_summary,
     )
 
@@ -158,39 +127,18 @@ def test_count_rows_summary_matches_matrix(matcher, udp1000, monkeypatch):
     for ndev in (2, 8):
         mesh = make_mesh(jax.devices("cpu")[:ndev])
         tot, hits = count_rows_summary(
-            matcher, batch.payloads, batch.lengths, mesh, engine="window"
+            matcher, batch.payloads, batch.lengths, mesh
         )
         assert tot.dtype == np.int64
         assert (tot[dup] == want_tot_exp).all(), f"window ndev={ndev}"
         assert (hits == want_hits).all(), f"window ndev={ndev}"
-
-    monkeypatch.setenv("MSM_PALLAS_INTERPRET", "1")
-    for table in ("0", "1"):
-        monkeypatch.setenv("MSM_PALLAS_TABLE", table)
-        m2 = Matcher(matcher.patterns)  # fresh: kernel choice is cached
-        mesh = make_mesh(jax.devices("cpu")[:4])
-        tot, hits = count_rows_summary(
-            m2, batch.payloads, batch.lengths, mesh, engine="pallas"
-        )
-        assert (tot[dup] == want_tot_exp).all(), f"pallas table={table}"
-        assert (hits == want_hits).all(), f"pallas table={table}"
-        # The local (unsharded) tile summary — same contract, no mesh.
-        tot_l, hits_l = m2.pallas.count_tile_summary(
-            batch.payloads, batch.lengths
-        )
-        assert (
-            np.asarray(tot_l)[dup] == want_tot_exp
-        ).all(), f"local table={table}"
-        assert (
-            np.asarray(hits_l)[: batch.payloads.shape[0]] == want_hits
-        ).all(), f"local table={table}"
 
 
 def test_count_rows_summary_slices_big_feeds(matcher, udp1000, monkeypatch):
     """Feeds that could wrap the device int32 totals are sliced internally
     (int64 host accumulation across slices) — results identical to the
     one-dispatch path."""
-    from multithreading_string_matching_tpu.parallel import mesh as mesh_mod
+    from multithreading_string_matching.parallel import mesh as mesh_mod
 
     batch, _ = udp1000
     mesh = make_mesh(jax.devices("cpu")[:2])
@@ -207,37 +155,6 @@ def test_count_rows_summary_slices_big_feeds(matcher, udp1000, monkeypatch):
     )
     assert (tot == want_tot).all()
     assert (hits == want_hits).all()
-
-
-def test_pallas_for_mesh_remaps_interpret_flag(matcher, udp1000):
-    """A non-interpret Pallas matcher handed a CPU mesh must be remapped to
-    an interpret sibling by the SHARED helpers (count_rows_summary here) —
-    the interpret-vs-mesh-platform race previously only handled on the
-    distributed entry."""
-    from multithreading_string_matching_tpu.ops.pallas_window import (
-        PallasWindowMatcher,
-    )
-    from multithreading_string_matching_tpu.parallel.mesh import (
-        count_rows_summary,
-        pallas_for_mesh,
-    )
-
-    batch, _ = udp1000
-    m2 = Matcher(matcher.patterns)
-    # Simulate the TPU-default-backend case: the cached kernel compiles
-    # Mosaic (interpret=False), but the mesh lives on CPU devices.
-    m2._pallas = PallasWindowMatcher(
-        m2.window, interpret=False, assume_zero_padded=True
-    )
-    mesh = make_mesh(jax.devices("cpu")[:2])
-    pm = pallas_for_mesh(m2, mesh)
-    assert pm.interpret and pm is not m2._pallas
-    assert pallas_for_mesh(m2, mesh) is pm  # cached sibling, not a rebuild
-    tot, hits = count_rows_summary(
-        m2, batch.payloads, batch.lengths, mesh, engine="pallas"
-    )
-    want = np.asarray(matcher.count(batch.payloads, batch.lengths))
-    assert (tot[m2.window.dup_map] == want.astype(np.int64)).all()
 
 
 def test_stream_checkpoint_restores_int64_exact(matcher, tmp_path):
@@ -266,7 +183,7 @@ def test_stream_engine_typo_raises(matcher):
 def test_packed_counter_oversized_totals_are_int64(matcher):
     """Oversized-row (can't-pack) counts accumulate host-side in int64 from
     the first feed — int32 across many feeds could wrap silently."""
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.parallel.pipeline import (
         PackedTileCounter,
     )
 
@@ -306,7 +223,7 @@ def test_stream_load_replaces_all_accumulators(matcher, reference_dir, tmp_path)
     """load() is a ROLLBACK: restoring a checkpoint onto a used packed
     StreamMatcher must not add the tile accumulators (already included in
     the checkpoint) on top of the restored counts."""
-    from multithreading_string_matching_tpu.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching.io.pcap import read_pcap, slice_pcap
 
     pcap = read_pcap(reference_dir / "udp.pcap")
     s = StreamMatcher(matcher)  # packed='auto' -> tiles on this pattern set
@@ -324,7 +241,7 @@ def test_feed_pcap_slice_empty_with_bpf(matcher, reference_dir):
     """An empty pcap slice through the kernel-filter path is a no-op (the
     padded placeholder row must neither crash the mask nor count as a
     sniffed packet)."""
-    from multithreading_string_matching_tpu.io.pcap import read_pcap, slice_pcap
+    from multithreading_string_matching.io.pcap import read_pcap, slice_pcap
 
     pcap = read_pcap(reference_dir / "udp.pcap")
     empty = slice_pcap(pcap, 0, 0)
@@ -365,7 +282,7 @@ def test_iter_batches_shapes(reference_dir):
 
 
 def test_stream_packed_tiles_amortize_dispatch(reference_dir, matcher, udp1000):
-    """VERDICT r1 #4 (live at TPU rate): the default StreamMatcher packs
+    """Live at kernel rate: the default StreamMatcher packs
     feeds into fixed tiles, so dispatches scale with TILES, not the 100
     10-packet batches — and counts stay bit-identical to offline."""
     _, want = udp1000

@@ -1,8 +1,9 @@
 """Pattern-axis sharding: bit-identity vs the single-device scan at every
-shard count, both engines, 1-D and 2-D meshes, totals/rows/summary shapes.
+shard count, for small sets and for large ones (more than
+PATTERN_AXIS_MIN_WORDS pattern words), 1-D and 2-D meshes,
+totals/rows/summary shapes.
 
-The untouched parallelism dimension from VERDICT r4: parallel/mesh.py
-shards only packets; these tests pin that sharding the PATTERN tables over
+parallel/mesh.py shards only packets; these tests pin that sharding the PATTERN tables over
 the mesh (each device scanning all packets with 1/N of the rule set, counts
 merged by concatenation) changes nothing about the counts.
 """
@@ -12,12 +13,13 @@ import pytest
 
 import jax
 
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.parallel.pattern_shard import (
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.parallel.pattern_shard import (
     build_pattern_shards,
     choose_shard_axis,
     count_matches_pattern_sharded,
     count_rows_pattern_sharded,
+    PATTERN_AXIS_MIN_WORDS,
     count_rows_summary_pattern_sharded,
     make_pattern_mesh,
     make_2d_mesh,
@@ -39,11 +41,27 @@ def _mk_patterns(rng, count, lens=(2, 9), alphabet=(0x61, 0x67)):
     ]
 
 
+def _set_of_size(rng, size, count):
+    """``count`` mixed-length patterns, or for ``size='large'`` 140 patterns
+    of 13-16 bytes (4 words each: 560 words, past PATTERN_AXIS_MIN_WORDS)."""
+    if size == "large":
+        pats = _mk_patterns(rng, 140, lens=(13, 17))
+        assert Matcher(pats)._pattern_stats()[2] > PATTERN_AXIS_MIN_WORDS
+        return pats
+    return _mk_patterns(rng, count)
+
+
+# Every engine request runs the window engine here ('pallas' included);
+# "large" sets are past PATTERN_AXIS_MIN_WORDS.
+CASES = [("window", "small"), ("pallas", "small"), ("window", "large")]
+IDS = ["window", "pallas", "large"]
+
+
 @pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
-@pytest.mark.parametrize("engine", ["window", "pallas"])
-def test_totals_bit_identical(n_shards, engine):
+@pytest.mark.parametrize("engine, size", CASES, ids=IDS)
+def test_totals_bit_identical(n_shards, engine, size):
     rng = np.random.default_rng(50 + n_shards)
-    pats = _mk_patterns(rng, 37) + [b"aa", b"aa"]  # duplicates expand
+    pats = _set_of_size(rng, size, 37) + [b"aa", b"aa"]  # duplicates expand
     m = Matcher(pats)
     payloads, lengths = _mk_batch(rng)
     want = m.count(payloads, lengths, engine="window")
@@ -54,10 +72,10 @@ def test_totals_bit_identical(n_shards, engine):
     assert (got == want).all()
 
 
-@pytest.mark.parametrize("engine", ["window", "pallas"])
-def test_rows_bit_identical(engine):
+@pytest.mark.parametrize("engine, size", CASES, ids=IDS)
+def test_rows_bit_identical(engine, size):
     rng = np.random.default_rng(60)
-    pats = _mk_patterns(rng, 21)
+    pats = _set_of_size(rng, size, 21)
     m = Matcher(pats)
     payloads, lengths = _mk_batch(rng, n=24, L=128)
     want = m.count(payloads, lengths, engine="window", per_packet=True)
@@ -66,11 +84,11 @@ def test_rows_bit_identical(engine):
     assert (got == want).all()
 
 
-@pytest.mark.parametrize("engine", ["window", "pallas"])
-def test_2d_mesh_composes(engine):
+@pytest.mark.parametrize("engine, size", CASES, ids=IDS)
+def test_2d_mesh_composes(engine, size):
     """packets x patterns: both axes sharded at once, counts unchanged."""
     rng = np.random.default_rng(61)
-    pats = _mk_patterns(rng, 19)
+    pats = _set_of_size(rng, size, 19)
     m = Matcher(pats)
     payloads, lengths = _mk_batch(rng, n=40, L=128)
     want = m.count(payloads, lengths, engine="window")
@@ -86,10 +104,10 @@ def test_2d_mesh_composes(engine):
     assert (got_rows == want_rows).all()
 
 
-@pytest.mark.parametrize("engine", ["window", "pallas"])
-def test_summary_matches_rows(engine):
+@pytest.mark.parametrize("engine, size", CASES, ids=IDS)
+def test_summary_matches_rows(engine, size):
     rng = np.random.default_rng(62)
-    pats = _mk_patterns(rng, 23)
+    pats = _set_of_size(rng, size, 23)
     m = Matcher(pats)
     payloads, lengths = _mk_batch(rng, n=32, L=128)
     rows = m.count(payloads, lengths, engine="window", per_packet=True)
@@ -135,36 +153,6 @@ def test_more_shards_than_patterns():
     mesh = make_pattern_mesh(jax.devices()[:8])
     got = count_matches_pattern_sharded(m, payloads, lengths, mesh)
     assert (got == want).all()
-
-
-def test_filtered_tables_match_plain():
-    """The filter/verify column changes nothing about counts (padded slots
-    report 0 via the never-fires sentinel instead of garbage)."""
-    rng = np.random.default_rng(65)
-    pats = _mk_patterns(rng, 40, lens=(4, 12))
-    m = Matcher(pats)
-    wp = m.window
-    plan_f = build_pattern_shards(wp, 4, filtered=True)
-    plan_p = build_pattern_shards(wp, 4, filtered=False)
-    assert plan_f.words.shape[1] == plan_p.words.shape[1] + 1
-    assert plan_f.S == plan_p.S
-    payloads, lengths = _mk_batch(rng, n=16, L=128)
-    want = m.count(payloads, lengths, engine="window")
-    mesh = make_pattern_mesh(jax.devices()[:4])
-    import os
-
-    os.environ["MSM_PALLAS_FILTER"] = "0"
-    try:
-        got_plain = count_matches_pattern_sharded(
-            m, payloads, lengths, mesh, engine="pallas"
-        )
-    finally:
-        del os.environ["MSM_PALLAS_FILTER"]
-    got_filt = count_matches_pattern_sharded(
-        m, payloads, lengths, mesh, engine="pallas"
-    )
-    assert (got_plain == want).all()
-    assert (got_filt == want).all()
 
 
 def test_ac_kmp_remap_and_bad_engine():
@@ -223,8 +211,8 @@ def test_gather_roundtrip():
 
 
 def test_streamed_pattern_sharded_matches(reference_dir):
-    from multithreading_string_matching_tpu import load_patterns
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching import load_patterns
+    from multithreading_string_matching.parallel.pipeline import (
         count_pcap_streamed,
     )
 
@@ -241,7 +229,7 @@ def test_streamed_pattern_sharded_matches(reference_dir):
 def test_streamed_pattern_sharded_nul_set(reference_dir):
     """NUL pattern sets route through the per-row scanner; the pattern axis
     must compose with that fallback too."""
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.parallel.pipeline import (
         count_pcap_streamed,
     )
 
@@ -257,8 +245,8 @@ def test_streamed_pattern_sharded_nul_set(reference_dir):
 def test_streamed_attribution_pattern_sharded(reference_dir):
     """--sharded --offsets with the pattern axis: counts, offsets, and the
     dumped selection all equal the unsharded run."""
-    from multithreading_string_matching_tpu import load_patterns
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching import load_patterns
+    from multithreading_string_matching.parallel.pipeline import (
         scan_pcap_streamed,
     )
 
@@ -273,7 +261,7 @@ def test_streamed_attribution_pattern_sharded(reference_dir):
 
 
 def test_bad_shard_axis_raises(reference_dir):
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.parallel.pipeline import (
         count_pcap_streamed,
     )
 
@@ -297,7 +285,7 @@ def test_cli_shard_axis(reference_dir):
     env["MSM_PLATFORM"] = "cpu"
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
     out = subprocess.run(
-        [sys.executable, "-m", "multithreading_string_matching_tpu", "match",
+        [sys.executable, "-m", "multithreading_string_matching", "match",
          "--pcap", str(reference_dir / "udp.pcap"),
          "--patterns", str(reference_dir / "strings.txt"),
          "--mode", "udp", "--sharded", "--shard-axis", "patterns", "--json"],
@@ -308,7 +296,7 @@ def test_cli_shard_axis(reference_dir):
     assert sum(blob["counts"]) == 39
     assert blob["execution"]["shard_axis"] == "patterns"
     bad = subprocess.run(
-        [sys.executable, "-m", "multithreading_string_matching_tpu", "match",
+        [sys.executable, "-m", "multithreading_string_matching", "match",
          "--pcap", str(reference_dir / "udp.pcap"),
          "--patterns", str(reference_dir / "strings.txt"),
          "--shard-axis", "patterns"],
@@ -330,7 +318,7 @@ def test_cli_shard_axis_offsets(reference_dir):
 
     def run(*extra):
         out = subprocess.run(
-            [sys.executable, "-m", "multithreading_string_matching_tpu",
+            [sys.executable, "-m", "multithreading_string_matching",
              "match", "--pcap", str(reference_dir / "udp.pcap"),
              "--patterns", str(reference_dir / "strings.txt"),
              "--mode", "udp", "--offsets", "--json", *extra],

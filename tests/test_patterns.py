@@ -1,6 +1,6 @@
 import pytest
 
-from multithreading_string_matching_tpu.io.patterns import load_patterns, split_c_tokens
+from multithreading_string_matching.io.patterns import load_patterns, split_c_tokens
 
 
 def test_strings_txt(strings_path):
@@ -39,7 +39,7 @@ def test_empty_file_rejected(tmp_path):
 # -- escaped syntax (\xNN / \\) — binary patterns fscanf cannot express ----
 
 def test_escaped_syntax_decodes(tmp_path):
-    from multithreading_string_matching_tpu.io.patterns import unescape_token
+    from multithreading_string_matching.io.patterns import unescape_token
 
     f = tmp_path / "p.txt"
     f.write_bytes(rb"GET\x20/ \x00\x01\xff back\\slash plain")
@@ -65,7 +65,7 @@ def test_escaped_binary_pattern_end_to_end(tmp_path):
     """A NUL/space-containing pattern planted in payloads is found by every
     engine when loaded via the escaped syntax."""
     import numpy as np
-    from multithreading_string_matching_tpu.api import Matcher
+    from multithreading_string_matching.api import Matcher
 
     pat = b"\x00\xde\xad \xbe"
     f = tmp_path / "p.txt"

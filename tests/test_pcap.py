@@ -3,7 +3,7 @@ import struct
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu.io.pcap import (
+from multithreading_string_matching.io.pcap import (
     read_pcap,
     read_pcap_range,
     LINKTYPE_ETHERNET,

@@ -10,7 +10,7 @@ import struct
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import (
+from multithreading_string_matching import (
     Matcher,
     extract_payloads,
     iter_pcap,
@@ -184,7 +184,7 @@ def test_multi_section_interface_scoping(tmp_path):
     assert (int(pf.ts_sec[1]), int(pf.ts_frac[1])) == (7, 123_456)
 
     # Streaming reader agrees.
-    from multithreading_string_matching_tpu.io.pcap import iter_pcap
+    from multithreading_string_matching.io.pcap import iter_pcap
 
     chunks = list(iter_pcap(p, batch_packets=1))
     assert len(chunks) == 2

@@ -6,7 +6,7 @@ all-host abort dispatch on).
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import extract_payloads, read_pcap
+from multithreading_string_matching import extract_payloads, read_pcap
 
 
 def _try(path):

@@ -10,15 +10,15 @@ produce pathological wires, and the streaming form's one-round window.
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu import Matcher
-from multithreading_string_matching_tpu.io.flows import (
+from multithreading_string_matching import Matcher
+from multithreading_string_matching.io.flows import (
     extract_flows,
     flow_keys,
     tcp_seqs,
 )
-from multithreading_string_matching_tpu.io.pcap import read_pcap
-from multithreading_string_matching_tpu.io.synth import synth_tcp_flows_pcap
-from multithreading_string_matching_tpu.parallel.flow_stream import (
+from multithreading_string_matching.io.pcap import read_pcap
+from multithreading_string_matching.io.synth import synth_tcp_flows_pcap
+from multithreading_string_matching.parallel.flow_stream import (
     FlowStreamMatcher,
 )
 
@@ -198,8 +198,8 @@ def test_streaming_reorder_across_rounds_in_order_flow(tmp_path):
     p1, p2 = tmp_path / "a.pcap", tmp_path / "b.pcap"
     synth_tcp_flows_pcap(p1, [(KEY_A, b"xxSIGNA", [7])])
     # Second capture: continuation + a retransmission of the first bytes.
-    from multithreading_string_matching_tpu.io.synth import _eth_ipv4_tcp
-    from multithreading_string_matching_tpu.io.pcap import (
+    from multithreading_string_matching.io.synth import _eth_ipv4_tcp
+    from multithreading_string_matching.io.pcap import (
         classic_global_header,
     )
     import struct
@@ -231,8 +231,8 @@ def test_reorder_guards():
 def test_truncated_seq_raises(tmp_path):
     """A valid segment whose caplen cuts inside the TCP header must raise,
     not silently misorder."""
-    from multithreading_string_matching_tpu.io.synth import _eth_ipv4_tcp
-    from multithreading_string_matching_tpu.io.pcap import (
+    from multithreading_string_matching.io.synth import _eth_ipv4_tcp
+    from multithreading_string_matching.io.pcap import (
         classic_global_header,
     )
     import struct
@@ -282,7 +282,7 @@ def test_cli_flows_reorder(tmp_path):
 
     def run(*extra):
         return subprocess.run(
-            [sys.executable, "-m", "multithreading_string_matching_tpu",
+            [sys.executable, "-m", "multithreading_string_matching",
              "match", "--pcap", str(path), "--patterns", str(strings),
              "--mode", "tcp", "--flows", "--json", *extra],
             capture_output=True, text=True, env=env, timeout=300,
@@ -294,7 +294,7 @@ def test_cli_flows_reorder(tmp_path):
     plain = run()
     assert json.loads(plain.stdout)["counts"] == [0]
     bad = subprocess.run(
-        [sys.executable, "-m", "multithreading_string_matching_tpu",
+        [sys.executable, "-m", "multithreading_string_matching",
          "match", "--pcap", str(path), "--patterns", str(strings),
          "--mode", "tcp", "--reorder"],
         capture_output=True, text=True, env=env, timeout=300,
@@ -320,7 +320,7 @@ def test_cli_flows_stream_reorder(tmp_path):
     env = dict(os.environ)
     env["MSM_PLATFORM"] = "cpu"
     out = subprocess.run(
-        [sys.executable, "-m", "multithreading_string_matching_tpu",
+        [sys.executable, "-m", "multithreading_string_matching",
          "match", "--pcap", str(path), "--patterns", str(strings),
          "--mode", "tcp", "--flows", "--stream", "--reorder", "--json"],
         capture_output=True, text=True, env=env, timeout=300,

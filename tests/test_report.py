@@ -1,7 +1,7 @@
 import numpy as np
 
-from multithreading_string_matching_tpu.utils.report import format_report, BANNER, OOPS
-from multithreading_string_matching_tpu.utils.timing import PhaseTimer
+from multithreading_string_matching.utils.report import format_report, BANNER, OOPS
+from multithreading_string_matching.utils.timing import PhaseTimer
 
 
 def test_compat_format():

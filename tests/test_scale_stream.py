@@ -12,15 +12,15 @@ import numpy as np
 import pytest
 import jax
 
-from multithreading_string_matching_tpu import (
+from multithreading_string_matching import (
     Matcher,
     extract_payloads,
     load_patterns,
     read_pcap,
 )
-from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
-from multithreading_string_matching_tpu.parallel.mesh import make_mesh
-from multithreading_string_matching_tpu.parallel.pipeline import (
+from multithreading_string_matching.io.synth import synth_udp_pcap
+from multithreading_string_matching.parallel.mesh import make_mesh
+from multithreading_string_matching.parallel.pipeline import (
     count_pcap_streamed,
 )
 

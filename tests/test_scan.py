@@ -4,9 +4,9 @@ import numpy as np
 import pytest
 
 from oracle import count_overlapping
-from multithreading_string_matching_tpu.models.aho_corasick import AhoCorasick
-from multithreading_string_matching_tpu.models.kmp import stack_kmp_dfas
-from multithreading_string_matching_tpu.ops.scan import (
+from multithreading_string_matching.models.aho_corasick import AhoCorasick
+from multithreading_string_matching.models.kmp import stack_kmp_dfas
+from multithreading_string_matching.ops.scan import (
     CompiledAC,
     count_matches_ac,
     count_matches_kmp,

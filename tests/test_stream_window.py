@@ -4,12 +4,12 @@ import numpy as np
 import pytest
 
 from oracle import count_overlapping
-from multithreading_string_matching_tpu.ops.window import (
+from multithreading_string_matching.ops.window import (
     WindowProgram,
     count_matches_window,
     window_stream_chunk,
 )
-from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
+from multithreading_string_matching.parallel.stream import StreamMatcher
 
 PATS = [b"ab", b"aba", b"b", b"abab", b"ca", b"abcdefgh", b"\x00ab"]
 
@@ -98,7 +98,7 @@ def test_nul_pattern_across_chunks():
 
 
 def test_stream_matcher_window_engine_long_payload(strings_path):
-    from multithreading_string_matching_tpu import Matcher, load_patterns
+    from multithreading_string_matching import Matcher, load_patterns
 
     m = Matcher(load_patterns(strings_path))
     rng = np.random.default_rng(22)
@@ -117,9 +117,9 @@ def test_bpf_filter_sniffed_semantics(reference_dir):
     """With bpf_filter=True (the live CLI's mode), packets_seen counts only
     protocol-matching packets — the reference's pcap_setfilter semantics
     (live_openmp_task.c:127) — while match counts stay identical."""
-    from multithreading_string_matching_tpu import Matcher, load_patterns, read_pcap
-    from multithreading_string_matching_tpu.io.decode import bpf_protocol_mask
-    from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
+    from multithreading_string_matching import Matcher, load_patterns, read_pcap
+    from multithreading_string_matching.io.decode import bpf_protocol_mask
+    from multithreading_string_matching.parallel.stream import StreamMatcher
 
     m = Matcher(load_patterns(reference_dir / "strings.txt"), engine="window")
     pcap = read_pcap(reference_dir / "udp_1000.pcap")
@@ -144,7 +144,7 @@ def test_bpf_filter_tcp_quirk_divergence(tmp_path):
     live program has from its own serial program."""
     import struct
 
-    from multithreading_string_matching_tpu import Matcher, read_pcap
+    from multithreading_string_matching import Matcher, read_pcap
 
     payload = b"needle"
     # IPv4 packet with proto=17 (UDP) whose L4 bytes happen to form a
@@ -180,8 +180,8 @@ def test_streaming_property_fuzz(seed):
     lengths that end exactly at / inside / beyond chunk boundaries."""
     import jax.numpy as jnp
 
-    from multithreading_string_matching_tpu.api import Matcher
-    from multithreading_string_matching_tpu.ops.scan import count_matches_ac
+    from multithreading_string_matching.api import Matcher
+    from multithreading_string_matching.ops.scan import count_matches_ac
 
     rng = np.random.default_rng(seed)
     n, L = 10, 160
@@ -248,7 +248,7 @@ def _oracle_counts(payloads, lengths, pats):
 
 @pytest.mark.parametrize("packed", [False, "auto"])
 def test_stream_reload_swaps_pattern_sets(packed):
-    from multithreading_string_matching_tpu import Matcher
+    from multithreading_string_matching import Matcher
 
     pats_a = [b"ab", b"ba", b"ab"]          # duplicate kept, reported twice
     pats_b = [b"cd", b"abab"]
@@ -271,7 +271,7 @@ def test_stream_reload_swaps_pattern_sets(packed):
 
 
 def test_stream_reload_validates_before_mutating():
-    from multithreading_string_matching_tpu import Matcher
+    from multithreading_string_matching import Matcher
 
     s = StreamMatcher(Matcher([b"ab"]), packed=True)
     feed = np.full((4, 16), ord("a"), dtype=np.uint8)
@@ -287,8 +287,8 @@ def test_stream_reload_validates_before_mutating():
 
 
 def test_stream_reload_dump_writer_spans_sets(tmp_path, reference_dir):
-    from multithreading_string_matching_tpu import Matcher, read_pcap
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
+    from multithreading_string_matching import Matcher, read_pcap
+    from multithreading_string_matching.io.pcap import PcapWriter
 
     pcap = read_pcap(reference_dir / "udp.pcap")
     out = tmp_path / "hits.pcap"
@@ -301,7 +301,7 @@ def test_stream_reload_dump_writer_spans_sets(tmp_path, reference_dir):
     dumped = read_pcap(out)
     # First pass dumps NOTIFY packets, second pass rpc packets — in feed order.
     m_a, m_b = Matcher([b"NOTIFY"]), Matcher([b"rpc"])
-    from multithreading_string_matching_tpu.io.decode import extract_payloads
+    from multithreading_string_matching.io.decode import extract_payloads
 
     batch = extract_payloads(pcap, "udp")
     hits_a = np.asarray(m_a.count(batch.payloads, batch.lengths, per_packet=True)).sum(axis=1) > 0

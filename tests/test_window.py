@@ -4,11 +4,11 @@ import numpy as np
 import pytest
 
 from oracle import count_overlapping
-from multithreading_string_matching_tpu.ops.window import (
+from multithreading_string_matching.ops.window import (
     WindowProgram,
     count_matches_window,
 )
-from multithreading_string_matching_tpu.ops.bucketing import bucket_plan, run_bucketed
+from multithreading_string_matching.ops.bucketing import bucket_plan, run_bucketed
 
 PATS = [b"ab", b"aba", b"b", b"abab", b"ca", b"ab", b"abcdefgh", b"abcde"]
 
@@ -99,7 +99,7 @@ def test_bucket_plan_shapes():
 
 
 def test_quantize_rows():
-    from multithreading_string_matching_tpu.ops.bucketing import quantize_rows
+    from multithreading_string_matching.ops.bucketing import quantize_rows
 
     assert quantize_rows(1) == 8
     assert quantize_rows(8) == 8
@@ -130,7 +130,7 @@ def test_bucketed_equals_unbucketed():
 
 
 def test_matcher_engines_agree(reference_dir):
-    from multithreading_string_matching_tpu import (
+    from multithreading_string_matching import (
         Matcher,
         extract_payloads,
         load_patterns,

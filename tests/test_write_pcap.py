@@ -12,11 +12,11 @@ import json
 import numpy as np
 import pytest
 
-from multithreading_string_matching_tpu.api import Matcher
-from multithreading_string_matching_tpu.cli import main
-from multithreading_string_matching_tpu.io.decode import extract_payloads
-from multithreading_string_matching_tpu.io.patterns import load_patterns
-from multithreading_string_matching_tpu.io.pcap import (
+from multithreading_string_matching.api import Matcher
+from multithreading_string_matching.cli import main
+from multithreading_string_matching.io.decode import extract_payloads
+from multithreading_string_matching.io.patterns import load_patterns
+from multithreading_string_matching.io.pcap import (
     read_pcap,
     slice_pcap,
     write_pcap,
@@ -156,7 +156,7 @@ def test_dump_matches_with_per_packet_json(reference_dir, tmp_path, capsys):
 # -- streaming dump (bounded-memory matched-packet extraction) ------------
 
 def test_pcap_writer_incremental(reference_dir, tmp_path):
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
+    from multithreading_string_matching.io.pcap import PcapWriter
 
     src = read_pcap(reference_dir / "udp_1000.pcap")
     out = tmp_path / "inc.pcap"
@@ -172,7 +172,7 @@ def test_pcap_writer_incremental(reference_dir, tmp_path):
 
 
 def test_pcap_writer_empty_stream(tmp_path):
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
+    from multithreading_string_matching.io.pcap import PcapWriter
 
     out = tmp_path / "none.pcap"
     with PcapWriter(out):
@@ -183,7 +183,7 @@ def test_pcap_writer_empty_stream(tmp_path):
 def test_pcap_writer_metadata_mismatch(reference_dir, tmp_path):
     from dataclasses import replace
 
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
+    from multithreading_string_matching.io.pcap import PcapWriter
 
     src = read_pcap(reference_dir / "udp.pcap")
     with PcapWriter(tmp_path / "x.pcap") as w:
@@ -193,7 +193,7 @@ def test_pcap_writer_metadata_mismatch(reference_dir, tmp_path):
 
 
 def test_dump_matches_streamed_equals_oneshot(reference_dir, tmp_path):
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.parallel.pipeline import (
         dump_matches_streamed,
     )
 
@@ -240,9 +240,9 @@ def test_cli_stream_dump_matches(reference_dir, tmp_path, capsys):
 # -- live-mode dump (StreamMatcher dump_writer) ----------------------------
 
 def test_stream_matcher_dump_writer(reference_dir, tmp_path):
-    from multithreading_string_matching_tpu.io.live import FileReplaySource
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
-    from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
+    from multithreading_string_matching.io.live import FileReplaySource
+    from multithreading_string_matching.io.pcap import PcapWriter
+    from multithreading_string_matching.parallel.stream import StreamMatcher
 
     pats = load_patterns(reference_dir / "strings.txt")
     m = Matcher(pats, engine="window")
@@ -264,9 +264,9 @@ def test_stream_matcher_dump_batched_flush(reference_dir, tmp_path):
     """Packed-mode dump attribution batches slices into ONE scan per
     ~dump_scan_rows (no per-slice dispatch); explicit flush() before the
     writer closes yields the same dump as per-slice mode."""
-    from multithreading_string_matching_tpu.io.live import FileReplaySource
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
-    from multithreading_string_matching_tpu.parallel.stream import StreamMatcher
+    from multithreading_string_matching.io.live import FileReplaySource
+    from multithreading_string_matching.io.pcap import PcapWriter
+    from multithreading_string_matching.parallel.stream import StreamMatcher
 
     pats = load_patterns(reference_dir / "strings.txt")
     m = Matcher(pats, engine="window")
@@ -314,7 +314,7 @@ def test_cli_live_dump_matches_missing_value(reference_dir, capsys):
 # -- review-finding regressions --------------------------------------------
 
 def test_pcap_writer_accepts_boolean_mask(reference_dir, tmp_path):
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
+    from multithreading_string_matching.io.pcap import PcapWriter
 
     src = read_pcap(reference_dir / "udp.pcap")
     mask = np.zeros(src.num_packets, dtype=bool)
@@ -331,7 +331,7 @@ def test_pcap_writer_accepts_boolean_mask(reference_dir, tmp_path):
 def test_pcap_writer_empty_selection_locks_metadata(reference_dir, tmp_path):
     from dataclasses import replace
 
-    from multithreading_string_matching_tpu.io.pcap import PcapWriter
+    from multithreading_string_matching.io.pcap import PcapWriter
 
     src = replace(read_pcap(reference_dir / "udp.pcap"), linktype=113)
     out = tmp_path / "sll.pcap"
@@ -346,8 +346,8 @@ def test_dump_matches_streamed_locks_linktype_when_all_invalid(tmp_path):
     """A capture whose packets never decode still dumps with ITS linktype."""
     import struct as _s
 
-    from multithreading_string_matching_tpu.io.pcap import classic_global_header
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.io.pcap import classic_global_header
+    from multithreading_string_matching.parallel.pipeline import (
         dump_matches_streamed,
     )
 
@@ -367,7 +367,7 @@ def test_dump_matches_streamed_locks_linktype_when_all_invalid(tmp_path):
 
 def test_writer_roundtrip_fuzz(tmp_path):
     """Random synthetic captures survive write->read->write bit-exactly."""
-    from multithreading_string_matching_tpu.io.synth import synth_udp_pcap
+    from multithreading_string_matching.io.synth import synth_udp_pcap
 
     rng = np.random.default_rng(42)
     for trial in range(5):
@@ -388,7 +388,7 @@ def test_writer_roundtrip_fuzz(tmp_path):
 # -- multi-capture ingest ---------------------------------------------------
 
 def test_concat_pcaps_counts_and_dump(reference_dir, tmp_path, capsys):
-    from multithreading_string_matching_tpu.io.pcap import concat_pcaps
+    from multithreading_string_matching.io.pcap import concat_pcaps
 
     a = read_pcap(reference_dir / "udp.pcap")
     b = read_pcap(reference_dir / "udp_1000.pcap")
@@ -442,10 +442,10 @@ def test_stream_offsets_equal_oneshot(reference_dir, capsys):
     """Streamed --offsets reproduce the one-shot find_matches rows exactly —
     numbered by ORIGINAL capture packet (valid-row indices mapped through
     batch.valid) — even across tiny chunks and two files."""
-    from multithreading_string_matching_tpu.parallel.pipeline import (
+    from multithreading_string_matching.parallel.pipeline import (
         scan_pcap_streamed,
     )
-    from multithreading_string_matching_tpu.io.pcap import concat_pcaps
+    from multithreading_string_matching.io.pcap import concat_pcaps
 
     pats = load_patterns(reference_dir / "strings.txt")
     m = Matcher(pats, engine="window")
